@@ -1,0 +1,249 @@
+"""The slice as a whole: the port's scheduler-driven parallel Dijkstra
+(``repro_torch.core.engine``) against the JAX package's, trajectory for
+trajectory, plus the port package's hygiene.
+
+The reference's key chain is replayed into the port's explicit draws
+(``_torch_parity.JaxReplay``), so every per-phase statistic, the final
+distances and the summary must agree exactly (tolerance 0). The reference
+runs with its CPU default (top-k backend ``ref``), the port with its plain
+top-k; the two differ only on the indices of -inf candidates, which the
+fused arbitration masks.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import JaxReplay, assert_same
+from repro.core import engine as jeng
+from repro.core import kpriority as jkp
+from repro.core import sssp as jss
+from repro_torch.core import engine as teng
+from repro_torch.core import kpriority as tkp
+from repro_torch.core import sssp as tss
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def quick_graph():
+    w = tss.make_er_graph(seed=0, n=800, p=0.2)
+    return w, tss.dijkstra_ref(w)
+
+
+@pytest.fixture(scope="module")
+def multiblock_graph():
+    w = tss.make_er_graph(seed=3, n=1200, p=0.05)   # 2 blocks of 1024
+    return w, tss.dijkstra_ref(w)
+
+
+def _assert_runs_equal(jr, tr):
+    assert set(jr.per_phase) == set(tr.per_phase)
+    for f, col in jr.per_phase.items():
+        assert col.dtype == tr.per_phase[f].dtype, f
+        np.testing.assert_array_equal(col, tr.per_phase[f], err_msg=f)
+    assert jr.dist.dtype == tr.dist.dtype == np.float32
+    np.testing.assert_array_equal(jr.dist, tr.dist)
+    for f in ("phases", "total_relaxed", "total_settled", "total_pushes",
+              "max_ignored", "useless", "correct"):
+        assert getattr(jr, f) == getattr(tr, f), f
+
+
+def _both(w, final, pol, k, places, seed=0):
+    jr = jeng.run_sssp(w, num_places=places, k=k, policy=pol, seed=seed,
+                       final=final)
+    tr = teng.run_sssp(w, num_places=places, k=k, policy=tkp.Policy(pol.value),
+                       seed=seed, final=final, device="cpu",
+                       draws=JaxReplay([seed]))
+    return jr, tr
+
+
+def test_graph_helpers_are_copies(quick_graph):
+    w, final = quick_graph
+    np.testing.assert_array_equal(w, jss.make_er_graph(0, 800, 0.2))
+    np.testing.assert_array_equal(final, jss.dijkstra_ref(w))
+    assert tss.SETTLED_EPS == jss.SETTLED_EPS
+
+
+def test_init_sssp_matches(quick_graph):
+    w, _ = quick_graph
+    js = jss.init_sssp(w, 16)
+    ts = tss.init_sssp(torch.from_numpy(w), 16)
+    assert_same(js.dist, ts.dist)
+    assert_same(js.pool, ts.pool)
+    carried = tss.state_from_numpy(np.asarray(js.dist), js.pool, device="cpu")
+    assert_same(js.dist, carried.dist)
+    assert_same(js.pool, carried.pool)
+
+
+def test_single_sssp_phase_matches(quick_graph):
+    """A few phases of the single-graph ``sssp_phase`` (the G = 1 slice)
+    against the reference's, state and statistics."""
+    w, final = quick_graph
+    pol = jkp.Policy.HYBRID
+    js = jss.init_sssp(w, 16)
+    ts = tss.init_sssp(torch.from_numpy(w), 16)
+    fj, ft = np.asarray(final, np.float32), torch.from_numpy(final.astype(np.float32))
+    replay = JaxReplay([7])
+    key = jax.random.PRNGKey(7)
+    for _ in range(4):
+        key, sub = jax.random.split(key)
+        # the reference's jitted phase, as its run_sssp calls it
+        js, jstats = jeng._phase(js, sub, jnp.asarray(w), jnp.asarray(fj),
+                                 num_places=16, k=8, policy=pol,
+                                 arbitration="fused", topk_backend="auto")
+        ts, tstats = tss.sssp_phase(
+            ts, replay(num_places=16, num_slots=800, policy=pol),
+            torch.from_numpy(w), ft, num_places=16, k=8, policy=tkp.Policy.HYBRID)
+        assert_same(jstats, tstats)
+        assert_same(js.dist, ts.dist)
+        assert_same(js.pool, ts.pool)
+
+
+@pytest.mark.parametrize("pol,k", [
+    (jkp.Policy.IDEAL, 1),
+    (jkp.Policy.CENTRALIZED, 32),
+    (jkp.Policy.HYBRID, 8),
+    (jkp.Policy.WORK_STEALING, 1),
+    (jkp.Policy.MULTIQUEUE, 1),
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_run_sssp_matches_jax_quickstart(quick_graph, pol, k):
+    w, final = quick_graph
+    jr, tr = _both(w, final, pol, k, places=16)
+    _assert_runs_equal(jr, tr)
+    assert tr.correct
+
+
+@pytest.mark.parametrize("pol,k", [
+    (jkp.Policy.IDEAL, 1),
+    (jkp.Policy.HYBRID, 2),
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_run_sssp_matches_jax_multiblock(multiblock_graph, pol, k):
+    """Two 1024-blocks: the relaxed (c < P) selection is live for HYBRID."""
+    w, final = multiblock_graph
+    jr, tr = _both(w, final, pol, k, places=8, seed=1)
+    _assert_runs_equal(jr, tr)
+    assert tr.correct
+    rho = tkp.rho_bound(tkp.Policy(pol.value), k, 8)
+    if pol is jkp.Policy.IDEAL:
+        assert tr.max_ignored <= rho
+    else:
+        # recorded, not asserted: the reference's HYBRID can exceed P·k once
+        # the pool spans more than one block
+        print(f"HYBRID multi-block max_ignored={tr.max_ignored} rho={rho}")
+
+
+@pytest.mark.parametrize("pol", list(tkp.Policy), ids=lambda p: p.name)
+def test_batched_rows_equal_single_runs(pol):
+    ws = np.stack([tss.make_er_graph(s, 300, 0.1) for s in (5, 6, 7)])
+    finals = np.stack([tss.dijkstra_ref(w) for w in ws])
+    seeds = [3, 1, 4]
+    br = teng.run_sssp_batched(ws, num_places=8, k=2, policy=pol, seeds=seeds,
+                               finals=finals, device="cpu")
+    assert br.joint_phases == max(r.phases for r in br.runs)
+    for g, row in enumerate(br.runs):
+        single = teng.run_sssp(ws[g], num_places=8, k=2, policy=pol,
+                               seed=seeds[g], final=finals[g], device="cpu")
+        _assert_runs_equal(single, row)
+        assert row.correct
+    chunked = teng.run_sssp_batched(ws, num_places=8, k=2, policy=pol,
+                                    seeds=seeds, finals=finals, device="cpu",
+                                    phase_chunk=5)
+    assert chunked.joint_phases >= br.joint_phases
+    for a, b in zip(br.runs, chunked.runs):
+        _assert_runs_equal(a, b)
+
+
+def test_scan_arbiter_run_equals_fused_under_ideal():
+    w = tss.make_er_graph(9, 300, 0.1)
+    final = tss.dijkstra_ref(w)
+    runs = [teng.run_sssp(w, num_places=8, k=1, policy=tkp.Policy.IDEAL,
+                          final=final, arbitration=arb, device="cpu")
+            for arb in ("fused", "scan")]
+    _assert_runs_equal(*runs)
+
+
+def test_max_phases_truncates():
+    w = tss.make_er_graph(2, 300, 0.1)
+    r = teng.run_sssp(w, num_places=4, k=1, policy=tkp.Policy.IDEAL,
+                      max_phases=3, device="cpu")
+    assert r.phases == 3 and len(r.per_phase["relaxed"]) == 3
+    assert not r.correct
+
+
+# ---------------------------------------------------------------------------
+# package hygiene
+# ---------------------------------------------------------------------------
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_repro_torch_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.quickstart, "
+            "repro_torch.kernels.relaxed_topk, repro_torch.kernels._build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkp.init_pool(10, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teng.run_sssp(tss.make_er_graph(0, 20, 0.5), num_places=2, k=1,
+                      policy=tkp.Policy.IDEAL)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tkp.init_pool(10, 2, device="meta")
+
+
+def test_build_module_imports_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    assert [s.name for s in _build.sources()] == ["relaxed_topk.cu"]
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+def test_build_raises_with_nvcc_output_on_a_failed_compile(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc failed for relaxed_topk.cu"
+                       "(.|\n)*no sm_90a here"):
+        _build.load("relaxed_topk")
+    assert list((tmp_path / "out").iterdir()) == []
+    assert _build._loaded == {}
