@@ -1,0 +1,28 @@
+"""qwen2.5-14b [dense] — GQA with QKV bias. [hf:Qwen/Qwen2.5-*]
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064, head_dim 128."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2_5_14b",
+    train_grad_accum=4,
+    family="dense",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=13824,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)
+
+
+def reduced() -> ModelConfig:
+    import dataclasses
+    return dataclasses.replace(
+        CONFIG,
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512,
+        loss_chunk=32, attn_block_q=32, attn_block_kv=32,
+    )

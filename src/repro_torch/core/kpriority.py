@@ -154,6 +154,17 @@ def mq_sample_host(t: int, num_places: int):
 # state
 # ---------------------------------------------------------------------------
 
+def aged_key(priority: float, push_step: int, rate: float) -> float:
+    """Priority-aging transform: the static queue key of a request pushed at
+    ``push_step`` under linear aging at ``rate`` priority units per step,
+    ``f32(f32(priority) + f32(rate) · f32(push_step))``. Subtracting
+    ``rate·t`` from every key at time t preserves every comparison, so the
+    push-time key orders as live-aged priorities would. Returns an f32-exact
+    Python float."""
+    return float(np.float32(
+        np.float32(priority) + np.float32(rate) * np.float32(push_step)))
+
+
 class PoolState(NamedTuple):
     """Slot-pool state, M slots, slot index = task identity (single-instance
     shapes below; batched pools add a leading [B])."""

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash is
 of the source text, so an edited source never loads a stale library) and is
-loaded at first use. Only the repository's own sources are built. The
+loaded at first use. Only the repository's own sources are built; the
+sources of one call are compiled by concurrent ``nvcc`` processes. The
 directory ``_build/`` is git-ignored. Nothing here runs at import time, so
 the module imports on a machine without ``nvcc``.
 
@@ -55,36 +56,51 @@ def _nvcc() -> str:
     )
 
 
-def _build(src: Path) -> Built:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    target = BUILD_DIR / f"lib{src.stem}-{digest}.so"
-    seconds, log = 0.0, ""
-    if not target.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(target), str(src)],
-            capture_output=True, text=True, check=False,
-        )
-        seconds, log = time.perf_counter() - t0, proc.stdout + proc.stderr
+def _build(srcs: List[Path]) -> None:
+    """Build and load ``srcs`` into ``_loaded``, one ``nvcc`` process per
+    source, all started before any is waited for. Raises ``RuntimeError``
+    with nvcc's output for every source that failed."""
+    todo = []
+    for src in srcs:
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        target = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+        if target.is_file():
+            _loaded[src.stem] = Built(ctypes.CDLL(str(target)), 0.0, "")
+        else:
+            todo.append((src, target))
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = [
+        (src, target, time.perf_counter(), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(target), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, target in todo
+    ]
+    errors = []
+    for src, target, t0, proc in started:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             target.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
-    return Built(ctypes.CDLL(str(target)), seconds, log)
+            errors.append(f"nvcc failed for {src.name}:\n{log}")
+        else:
+            _loaded[src.stem] = Built(ctypes.CDLL(str(target)), seconds, log)
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def build_all() -> Dict[str, Built]:
     """Build and load every ``csrc/*.cu`` not loaded yet. Returns
     ``{name: Built}`` for all sources. Raises ``RuntimeError`` with nvcc's
     output if a build fails."""
-    for src in sources():
-        if src.stem not in _loaded:
-            _loaded[src.stem] = _build(src)
+    _build([src for src in sources() if src.stem not in _loaded])
     return dict(_loaded)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
     if name not in _loaded:
-        _loaded[name] = _build(CSRC / f"{name}.cu")
+        _build([CSRC / f"{name}.cu"])
     return _loaded[name].lib

@@ -1,5 +1,5 @@
-"""Sort-based oracles for the relaxed top-k selection (port of the
-``relaxed_topk`` part of the reference ``kernels/ref.py``).
+"""Oracles of the port's kernels (port of the reference ``kernels/ref.py``):
+sort-based relaxed top-k selection and dense softmax attention.
 
 ``lax.top_k`` puts the lower index first among equal values; a stable
 descending ``torch.sort`` does the same (``torch.topk`` promises no tie
@@ -7,7 +7,7 @@ order, so it is not used).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,3 +61,36 @@ def relaxed_topk_ref(
 def exact_topk_ref(x: torch.Tensor, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
     v, i = _top_sorted(x.float(), p)
     return v, i.to(torch.int32)
+
+
+def attention_ref(
+    q: torch.Tensor,                 # [B, H, Sq, D]
+    k: torch.Tensor,                 # [B, Hkv, Skv, D]
+    v: torch.Tensor,                 # [B, Hkv, Skv, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact dense softmax attention in f32 with GQA (query head h reads KV
+    head h // group) and causal / window masks counted from position 0.
+    A fully masked row outputs 0. The result is in q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    kg = k.repeat_interleave(group, dim=1).float()
+    vg = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kg) * sm_scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vg).to(q.dtype)

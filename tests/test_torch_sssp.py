@@ -201,7 +201,11 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_import_repro_torch_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.quickstart, "
-            "repro_torch.kernels.relaxed_topk, repro_torch.kernels._build; "
+            "repro_torch.kernels.relaxed_topk, repro_torch.kernels._build, "
+            "repro_torch.kernels.flash_attention, repro_torch.configs, "
+            "repro_torch.models, repro_torch.core.host_queue, "
+            "repro_torch.serve.config, repro_torch.serve.engine, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -224,7 +228,8 @@ def test_default_device_raises_without_gpu(monkeypatch):
 def test_build_module_imports_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
 
-    assert [s.name for s in _build.sources()] == ["relaxed_topk.cu"]
+    assert [s.name for s in _build.sources()] == ["flash_attention.cu",
+                                                  "relaxed_topk.cu"]
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "_loaded", {})
